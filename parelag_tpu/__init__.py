@@ -1,14 +1,13 @@
-"""parelag_tpu — TPU-native element-agglomeration AMGe on the de Rham complex.
+"""parelag_tpu — element-agglomeration AMGe on the de Rham complex in JAX.
 
 A from-scratch JAX/XLA framework with the capabilities of LLNL/ParElag
-(reference: /root/reference, C++/MPI on MFEM+hypre): operator-dependent
-numerical upscaling and AMGe solvers for H1 / H(curl) / H(div) / L2
-discretizations.
+(C++/MPI on MFEM+hypre): operator-dependent numerical upscaling and AMGe
+solvers for H1 / H(curl) / H(div) / L2 discretizations.
 
-Architecture (TPU-first, not a port):
+Architecture:
   * mesh topology & agglomeration  -> integer index arrays + scipy CSR on host
   * per-agglomerate local problems -> padded, bucketed batched dense kernels
-                                      (vmap/Pallas) on device
+                                      (vmap) on device
   * solve phase (SpMV, smoothers, Krylov, V-cycle) -> jitted JAX on device
   * distribution -> one mesh-partition axis via jax.sharding / shard_map
                     (the reference's MPI domain decomposition analog)
@@ -23,13 +22,12 @@ def _tune_malloc():
 
     The setup phase streams many ~100MB-1GB numpy temporaries; with
     glibc's default mmap behavior every one is returned to the OS on free
-    and re-faulted page-by-page on the next allocation — measured at
-    ~75 MB/s first-touch on virtualized hosts vs 14 GB/s steady-state
-    (3.3 s to allocate+copy 240 MB without tuning, 0.25 s with). This is
-    the framework's MemoryUtils analog (reference
+    and re-faulted page-by-page on the next allocation. This is the
+    framework's MemoryUtils analog (reference
     src/utilities/MemoryUtils.hpp). Disable with PARELAG_MALLOC_TUNE=0.
     Trade-off: process high-water RSS stays allocated (not returned to
-    the OS between phases)."""
+    the OS between phases). Its effect on the GPU machine's host is not
+    measured."""
     import os
     if os.environ.get("PARELAG_MALLOC_TUNE", "1") in ("0", "false"):
         return
@@ -42,54 +40,19 @@ def _tune_malloc():
         # wider Python value would be silently truncated by ctypes:
         # 1 << 44 masks to 0, the exact opposite setting): every
         # allocation rides the brk heap and freed space is NEVER
-        # returned to the OS — on the deployment hosts, released pages
-        # lose their (slowly-acquired) host backing, so the heap must
-        # hold its high-water mark
+        # returned to the OS, so the heap holds its high-water mark
         libc.mallopt(-3, 0x7FFFFFFF)    # M_MMAP_THRESHOLD
         libc.mallopt(-1, 0x7FFFFFFF)    # M_TRIM_THRESHOLD
-        # single arena: prefault()'s background thread must feed the
-        # same free lists the main thread allocates from
-        libc.mallopt(-8, 1)             # M_ARENA_MAX
+        libc.mallopt(-8, 1)             # M_ARENA_MAX: single arena
     except Exception:                   # non-glibc platforms: no-op
-        pass
-
-
-def _lock_memory():
-    """Pin the process's pages (mlockall MCL_CURRENT|MCL_FUTURE).
-
-    Virtualized hosts running proactive reclaim (DAMON/khugepaged) evict
-    this process's cold pages even with >95% of RAM free; the refault
-    path then runs at ~10-75 MB/s and setup-phase numpy temporaries that
-    cost 0.3 s warm were measured at 33 s cold — a 100x swing. Locking
-    removes the eviction and makes mmap growth bulk-populate instead of
-    per-page faulting. Only applied when the host has plenty of headroom
-    (>16 GB MemAvailable); disable with PARELAG_MLOCK=0. MCL_ONFAULT is
-    deliberately NOT used: the per-page fault path is exactly what's
-    slow on these hosts."""
-    import os
-    if os.environ.get("PARELAG_MLOCK", "1") in ("0", "false"):
-        return
-    try:
-        with open("/proc/meminfo") as f:
-            avail_kb = 0
-            for line in f:
-                if line.startswith("MemAvailable:"):
-                    avail_kb = int(line.split()[1])
-                    break
-        if avail_kb < 16 * 1024 * 1024:
-            return
-        import ctypes
-        libc = ctypes.CDLL("libc.so.6", use_errno=True)
-        libc.mlockall(3)             # MCL_CURRENT | MCL_FUTURE
-    except Exception:                # non-Linux / no permission: no-op
         pass
 
 
 def _install_np_allocator():
     """Route numpy array data through the caching size-class allocator
     (native/parelag_npalloc.c): freed >=1 MB blocks keep their populated
-    pages and are reused, so the GB-scale setup temporaries never re-pay
-    the (phase-dependent, up to 100x) first-touch population cost.
+    pages and are reused, so the GB-scale setup temporaries do not re-pay
+    the first-touch population cost.
     Disable with PARELAG_NPALLOC=0; cap via PARELAG_NPALLOC_CAP_GB."""
     import os
     if os.environ.get("PARELAG_NPALLOC", "1") in ("0", "false"):
@@ -103,56 +66,7 @@ def _install_np_allocator():
         pass
 
 
-def prefault(gb, background=True):
-    """Acquire host backing for ~`gb` GB of heap ahead of need.
-
-    The deployment hosts back roughly the first 5-6 GB of a process
-    fast; beyond that, FRESH pages arrive at 10-100 MB/s (host-side,
-    one-time per page — see DESIGN.md). A large job that lets this
-    happen on demand stalls its compute at every big allocation.
-    prefault() walks the heap up front — by default on a background
-    thread; the memory is malloc'd, touched, and freed, so it lands in
-    the (never-trimmed, single-arena) free lists every later numpy
-    allocation draws from. OPT-IN and deliberately not called anywhere
-    by default: measured on the flagship build, a background prefault
-    racing a compute phase that itself allocates both contends for the
-    host's backing path and fragments the heap (interleaved chunk
-    ownership defeats coalescing), a net loss. Use it only BEFORE any
-    compute, e.g. while waiting on an accelerator session warmup.
-    Returns the Thread (or None when foreground/failed)."""
-    import ctypes
-    import threading
-
-    def _touch():
-        try:
-            libc = ctypes.CDLL("libc.so.6")
-            libc.malloc.restype = ctypes.c_void_p
-            libc.malloc.argtypes = [ctypes.c_size_t]
-            libc.free.argtypes = [ctypes.c_void_p]
-            step = 256 << 20
-            blocks = []
-            for _ in range(max(1, int(gb * (1 << 30)) // step)):
-                p = libc.malloc(step)
-                if not p:
-                    break
-                ctypes.memset(p, 0, step)
-                blocks.append(p)
-            for p in blocks:
-                libc.free(p)
-        except Exception:
-            pass
-
-    if not background:
-        _touch()
-        return None
-    t = threading.Thread(target=_touch, name="parelag-prefault",
-                         daemon=True)
-    t.start()
-    return t
-
-
 _tune_malloc()
-_lock_memory()
 _install_np_allocator()
 
 from parelag_tpu.mesh.mesh import (

@@ -2,7 +2,7 @@
 
 The reference builds arbitrary-order sequences through MFEM FE collections
 (DeRhamSequenceFE.cpp order handling; every example exposes -feo,
-e.g. Upscaling0Form.cpp:44-56). The TPU-native rebuild uses the exterior-
+e.g. Upscaling0Form.cpp:44-56). The rebuild uses the exterior-
 calculus dof design so the machinery stays array-shaped:
 
   * H1 = Q_{p+1}: NODAL dofs at tensor Gauss-Lobatto points — vertices,

@@ -4,7 +4,7 @@ Replaces the reference's per-element MFEM integrator loops
 (DeRhamSequenceFE::assembleLocalMass, DeRhamSequenceFE.cpp:97-310; custom
 trace integrators in src/amge/bilinIntegrators.cpp) with closed-form batched
 quadrature over all elements at once. Every function takes stacked geometry
-arrays and returns stacked local matrices — the natural TPU layout (these are
+arrays and returns stacked local matrices — the natural batched device layout (these are
 jnp-compatible pure functions; the setup phase runs them on host, and they
 vmap onto device unchanged).
 

@@ -125,7 +125,7 @@ class DeRhamSequence:
         cast_setup(np.float32) switches the whole coarsening engine to an
         f32 pipeline — every extraction, agglomerate assembly, saddle
         solve and scatter then streams half the bytes (the setup phase is
-        host-memory-bound; measured ~1.7x end-to-end). Appropriate when
+        host-memory-bound). Appropriate when
         the solve phase runs f32/bf16 anyway (the flagship bench);
         golden/invariant work keeps the f64 default (check_invariants
         tolerances assume f64)."""

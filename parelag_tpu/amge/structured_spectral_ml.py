@@ -52,7 +52,7 @@ from parelag_tpu.amge import structured_spectral as _sp
 # above every physical mode, so they are never among the kept smallest.
 # The pad must stay SCALE-AWARE: a fixed huge shift (1e8) makes the f32
 # eigh's absolute eigenvalue noise (~eps * ||A||) swamp the O(1) active
-# eigenvalues — measured on the chip as kept-mode collapse (46 vs 70
+# eigenvalues — seen on an accelerator as kept-mode collapse (46 vs 70
 # coarse u dofs at (12,20,8)); 16x the active bound keeps the noise at
 # ~16*eps relative, far under the 2e-3 spectral keep threshold.
 _PAD_EIG_FACTOR = 16.0

@@ -1,7 +1,7 @@
 """Mesh entity derivation: global edges/faces with orientation, oriented
 boundary operators B0 (element x facet), B1 (facet x ridge), B2 (ridge x peak).
 
-TPU-native replacement for the reference's use of MFEM FE-space incidence
+Replacement for the reference's use of MFEM FE-space incidence
 assembly to obtain oriented topology tables (reference:
 src/topology/Topology.cpp:100-141 builds B_[i] from Divergence/Curl/Gradient
 interpolators followed by OrientationTransform). Here the same +-1 tables come

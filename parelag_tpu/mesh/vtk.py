@@ -2,7 +2,7 @@
 
 The reference visualizes through GLVis sockets and MFEM VisIt
 DataCollections (Visualization.cpp:30-320, MultiVector.cpp saves). In a
-TPU/batch setting there is no socket target, so the equivalent artifact is
+batch setting there is no socket target, so the equivalent artifact is
 a portable VTK file per level: mesh + cell/point data, loadable in
 ParaView/VisIt. Writes ASCII legacy .vtk (no external deps).
 """

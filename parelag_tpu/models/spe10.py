@@ -172,21 +172,27 @@ def spe10_darcy(field: PermeabilityField = None, cells=(16, 16, 8),
     mult_solvers = ((mult_solver,) if isinstance(mult_solver, str)
                     else tuple(mult_solver))
     out = {"ndofs": [], "iters": [], "u": [], "p": [], "solve_s": [],
-           "solve_s_by": {ms: [] for ms in mult_solvers}}
+           "solve_s_by": {ms: [] for ms in mult_solvers},
+           "mult_iters_by": {ms: [] for ms in mult_solvers},
+           "u_by": {ms: [] for ms in mult_solvers}}
     for k in range(n_levels):
         s = seqs[k]
         if solver == "hybridization":
             hyb = HybridHdivL2(s)
-            # mult_solver="auto" routes the multiplier PCG to the TPU when
-            # one is attached (f32 device CG + f64 host refinement; shapes
-            # padded to power-of-two buckets so every level and size share
-            # ONE compiled solver) and to host scipy CG otherwise
+            # mult_solver="auto" routes the multiplier PCG to the
+            # accelerator when one is attached (f32 device CG + f64 host
+            # refinement; shapes padded to power-of-two buckets so every
+            # level and size share ONE compiled solver) and to host scipy
+            # CG otherwise
             u = p = None
             for ms in mult_solvers:
                 _t0 = _time.time()
                 uu, pp = hyb.solve(rhs_u[k], rhs_p[k], solver=ms,
                                    rtol=1e-8, rescale=True)
                 out["solve_s_by"][ms].append(_time.time() - _t0)
+                out["mult_iters_by"][ms].append(
+                    getattr(hyb, "last_iterations", None))
+                out["u_by"][ms].append(uu)
                 if u is None:
                     u, p = uu, pp
             out["iters"].append(hyb.n_mult)
@@ -204,6 +210,14 @@ def spe10_darcy(field: PermeabilityField = None, cells=(16, 16, 8),
         out["ndofs"].append(s.dof[uform].ndofs + s.dof[pform].ndofs)
 
     # upscaling errors vs fine
+    def u_rel(us):
+        hu = us[-1]
+        for j in range(n_levels - 1, 0, -1):
+            hu = seqs[j - 1].P[uform] @ hu
+        du = hu - us[0]
+        return (float(np.sqrt(du @ (Ml[0] @ du)))
+                / float(np.sqrt(us[0] @ (Ml[0] @ us[0]))))
+
     hu, hp = out["u"][-1], out["p"][-1]
     for j in range(n_levels - 1, 0, -1):
         hu = seqs[j - 1].P[uform] @ hu
@@ -214,4 +228,6 @@ def spe10_darcy(field: PermeabilityField = None, cells=(16, 16, 8),
     out["p_l2_err"] = float(np.sqrt(dp @ (Wl[0] @ dp)))
     un = out["u"][0]
     out["u_l2_rel"] = out["u_l2_err"] / float(np.sqrt(un @ (Ml[0] @ un)))
+    if solver == "hybridization":
+        out["u_l2_rel_by"] = {ms: u_rel(us) for ms, us in out["u_by"].items()}
     return out

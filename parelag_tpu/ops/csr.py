@@ -1,6 +1,6 @@
 """Host-side sparse (CSR) utilities over scipy.sparse.
 
-TPU-native equivalent of the reference's C sparse layer and TopologyTable
+Equivalent of the reference's C sparse layer and TopologyTable
 helpers (reference: src/hypreExtension/*.c, src/topology/TopologyTable.cpp,
 src/structures/minimalIntersectionSet.cpp, src/structures/transpose.cpp).
 These run in the host setup phase; the device solve phase uses

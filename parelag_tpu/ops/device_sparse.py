@@ -1,9 +1,14 @@
 """Device sparse-matrix substrate (JAX).
 
-TPU-native replacement for hypre ParCSR matvec machinery (reference
-hypreExtension + mfem::SparseMatrix::Mult throughout the solve phase): the
-solve-phase operators live on device in ELL (padded-row) layout, so SpMV is a
-dense gather + row reduction — static shapes, MXU/VPU-friendly, and vmappable.
+Replacement for hypre ParCSR matvec machinery (reference hypreExtension +
+mfem::SparseMatrix::Mult throughout the solve phase): the solve-phase
+operators live on device in ELL (padded-row) layout, so SpMV is a dense
+gather + row reduction — static shapes and vmappable.
+
+Every f32 contraction below passes precision=HIGHEST: on the GPU a
+default-precision f32 contraction may run in TF32 (~3 digits), which caps
+the Krylov A-matvec near a 1e-3 residual floor.  bf16 operands (the
+preconditioner cast) are unaffected by the flag.
 
 ELL layout: indices (n, k) int32, values (n, k) dtype, with padding entries
 pointing at column 0 with value 0. k = max row nnz (optionally rounded up to
@@ -17,6 +22,8 @@ import numpy as np
 import scipy.sparse as sp
 import jax
 import jax.numpy as jnp
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @jax.tree_util.register_pytree_node_class
@@ -70,8 +77,10 @@ def ell_matvec(A: EllMatrix, x):
     """y_i = sum_k vals[i,k] * x[idx[i,k]] — gather + row reduce.
     x may be (m,) or (m, s) for multi-RHS (one gather, s-wide reduce)."""
     if x.ndim == 2:
-        return jnp.einsum("nk,nks->ns", A.values, x[A.indices])
-    return jnp.einsum("nk,nk->n", A.values, x[A.indices])
+        return jnp.einsum("nk,nks->ns", A.values, x[A.indices],
+                          precision=_HIGHEST)
+    return jnp.einsum("nk,nk->n", A.values, x[A.indices],
+                      precision=_HIGHEST)
 
 
 def ell_matvec_T(A: EllMatrix, x):
@@ -84,12 +93,12 @@ def ell_matvec_T(A: EllMatrix, x):
 @jax.tree_util.register_pytree_node_class
 @dataclass
 class BcsrMatrix:
-    """Block-sparse row layout for MXU-friendly SpMV.
+    """Block-sparse row layout.
 
     Rows grouped in BR-blocks, columns in 128-blocks; per row-block a padded
     list of column-block ids plus dense (BR x 128) value tiles. SpMV becomes
-    block gathers of x plus a dense contraction — no element gathers, which
-    dominate ELL SpMV cost on TPU.
+    block gathers of x plus a dense contraction — no element gathers.  The
+    8 x 128 tile shape is inherited and not measured on the H100.
     """
     col_blocks: jnp.ndarray    # (nbr, kb) int32 column-block ids
     tiles: jnp.ndarray         # (nbr, kb, BR, 128)
@@ -112,24 +121,21 @@ class BcsrMatrix:
 
     def matvec(self, x):
         """x of logical length m, or (m, s) for multi-RHS: the contraction
-        becomes a true batched matmul (nbr, 8, kb*128) @ (nbr, kb*128, s),
-        feeding the MXU s columns wide (padded internally)."""
+        becomes a batched matmul (nbr, 8, kb*128) @ (nbr, kb*128, s)."""
         m_pad = self.padded[1]
         if x.ndim == 2:
             s = x.shape[1]
             xp = jnp.zeros((m_pad, s), x.dtype).at[: x.shape[0]].set(x)
             xb = xp.reshape(-1, self.BC, s)
             gathered = xb[self.col_blocks]          # (nbr, kb, 128, s)
-            y = jnp.einsum("nkrc,nkcs->nrs", self.tiles, gathered)
+            y = jnp.einsum("nkrc,nkcs->nrs", self.tiles, gathered,
+                           precision=_HIGHEST)
             return y.reshape(-1, s)[: self.shape[0]]
         xp = jnp.zeros(m_pad, x.dtype).at[: x.shape[0]].set(x)
         xb = xp.reshape(-1, self.BC)
         gathered = xb[self.col_blocks]              # (nbr, kb, 128)
-        # VPU multiply+reduce, NOT dot_general: a batched (BR x kb*128)
-        # matvec pads the 8-wide output against the 128-lane MXU and runs
-        # ~4-17x slower (measured 0.42 vs 1.5-7.4 ms on the 117k x 15k
-        # transfer operator); the elementwise form streams tiles at full
-        # HBM rate
+        # elementwise multiply + reduce, not dot_general: an 8-row batched
+        # matvec is a poor fit for a matrix unit (not measured on the H100)
         y = (self.tiles * gathered[:, :, None, :]).sum(axis=(1, 3))
         return y.reshape(-1)[: self.shape[0]]
 
@@ -216,7 +222,8 @@ class TileCooMatrix:
             xp = jnp.zeros((m_pad, s), x.dtype).at[:m].set(x)
             xb = xp.reshape(-1, self.BC, s)
             g = xb[self.col_blocks]                  # (t, 128, s)
-            part = jnp.einsum("trc,tcs->trs", self.tiles, g)
+            part = jnp.einsum("trc,tcs->trs", self.tiles, g,
+                              precision=_HIGHEST)
             y = jax.ops.segment_sum(part, self.row_blocks,
                                     num_segments=nbr,
                                     indices_are_sorted=True)
@@ -277,14 +284,12 @@ class DiaMatrix:
 
     y[i] = sum_d data[d, i] * x[i + offsets[d]], i.e. the matvec is nd
     shifted elementwise multiply-adds over the padded x — STATIC slices
-    only, no gathers (which dominate ELL cost on TPU) and no block-fill
-    waste (BCSR tiles are ~1% full on stencil-like operators). Offsets are
-    static aux data, so the shift sum UNROLLS and XLA fuses all nd shifted
-    multiply-adds into one elementwise kernel over VMEM-resident x (a
-    traced-offset lax.scan serializes into nd dispatch-bound dynamic
-    slices — measured 30x slower on a 1M-dof 27-point operator). Best used
-    with RCM-permuted operators (tight bandwidth -> few distinct offsets);
-    see solvers.hierarchy.build_hierarchy(reorder).
+    only, no gathers and no block-fill waste (BCSR tiles are ~1% full on
+    stencil-like operators). Offsets are static aux data, so the shift sum
+    unrolls and XLA can fuse all nd shifted multiply-adds (and a caller's
+    Jacobi update around them) into one elementwise loop. Best used with
+    RCM-permuted operators (tight bandwidth -> few distinct offsets); see
+    solvers.hierarchy.build_hierarchy(reorder).
     """
     data: jnp.ndarray      # (nd, n) row-aligned coefficients
     offs: tuple            # (nd,) STATIC column offsets (col - row)
@@ -302,168 +307,32 @@ class DiaMatrix:
     def dtype(self):
         return self.data.dtype
 
-    _TILE = 8192
-
-    _MAX_RHS = 64            # multi-RHS VMEM scratch bound (s, L) per tile
-
     def matvec(self, x):
         n, m = self.shape
         lo, hi = self.span
-        if x.dtype == self.data.dtype:
-            if x.ndim == 1 and self._pallas_ok():
-                return self._matvec_pallas(x)
-            if x.ndim == 2 and self._pallas_multirhs_ok(x.shape[1]):
-                return self._matvec_pallas_multirhs(x)
         pad_shape = (lo + m + hi,) + x.shape[1:]
         xpad = jnp.zeros(pad_shape, x.dtype).at[lo:lo + m].set(x)
         out_dtype = jnp.result_type(self.data.dtype, x.dtype)
         y = jnp.zeros((n,) + x.shape[1:], out_dtype)
         for d, off in enumerate(self.offs):
             w = jax.lax.slice_in_dim(xpad, lo + off, lo + off + n, axis=0)
-            row = self.data[d, :n]            # table is tile-padded
+            row = self.data[d]
             y = y + (row[:, None] * w if x.ndim == 2 else row * w)
         return y
-
-    def _shape_ok(self):
-        n, m = self.shape
-        # the kernel's xpad is sized from the ROW tiling: every tile read
-        # must be provably in bounds, which requires m <= npad and every
-        # offset within [-lo, hi] of the row span (wide operators with
-        # m > n can push offs.max() past hi for padded slots)
-        npad = -(-n // self._TILE) * self._TILE
-        return m <= npad and m <= n
-
-    def _pallas_ok(self):
-        from parelag_tpu.ops.pallas_kernels import (
-            pallas_dia_supported, dia_xpad_len)
-        if not self._shape_ok():
-            return False
-        n, m = self.shape
-        npad = -(-n // self._TILE) * self._TILE
-        # padded x must stay VMEM-resident (~budget half of 16 MB)
-        if dia_xpad_len(npad, self.span[0], self.offs, self._TILE) \
-                * self.data.dtype.itemsize > 8 * 2 ** 20:
-            return False
-        return pallas_dia_supported()
-
-    def _pallas_multirhs_ok(self, s):
-        from parelag_tpu.ops.pallas_kernels import (
-            pallas_dia_multirhs_supported)
-        if s > self._MAX_RHS or not self._shape_ok():
-            return False
-        # x stays in HBM for this kernel (DMA'd per tile) — no whole-x
-        # VMEM bound; only the per-tile (s, L) scratch must fit
-        return pallas_dia_multirhs_supported()
-
-    def _matvec_pallas_multirhs(self, x):
-        from parelag_tpu.ops.pallas_kernels import (
-            dia_spmv_multirhs_pallas, dia_xpad_len)
-        n, m = self.shape
-        lo, hi = self.span
-        T = self._TILE
-        data = self.data
-        npad = data.shape[1]
-        if npad % T:                          # foreign (unpadded) table
-            npad = -(-npad // T) * T
-            data = jnp.pad(data, ((0, 0), (0, npad - self.data.shape[1])))
-        s = x.shape[1]
-        xlen = dia_xpad_len(npad, lo, self.offs, T)
-        xpadT = jnp.zeros((s, xlen), x.dtype).at[:, lo:lo + m].set(x.T)
-        y = dia_spmv_multirhs_pallas(data, self.offs, xpadT, lo, n, tile=T)
-        return y[:, :n].T
-
-    def _matvec_pallas(self, x):
-        from parelag_tpu.ops.pallas_kernels import (
-            dia_spmv_pallas, dia_xpad_len)
-        n, m = self.shape
-        lo, hi = self.span
-        T = self._TILE
-        data = self.data
-        npad = data.shape[1]
-        if npad % T:                          # foreign (unpadded) table
-            npad = -(-npad // T) * T
-            data = jnp.pad(data, ((0, 0), (0, npad - self.data.shape[1])))
-        xlen = dia_xpad_len(npad, lo, self.offs, T)
-        xpad = jnp.zeros(xlen, x.dtype).at[lo:lo + m].set(x)
-        y = dia_spmv_pallas(data, self.offs, xpad, lo, n, tile=T)
-        return y[:n]
-
-    def jacobi_sweeps(self, b, x, dinv_omega, sweeps):
-        """`sweeps` fused (weighted-)Jacobi sweeps
-        x <- x + dinv_omega * (b - A x) — one pallas dispatch per sweep
-        (the dispatch-count lever of the latency-bound V-cycle; see
-        pallas_kernels.dia_jacobi_sweep_pallas).  b may be (n,) or
-        (n, s) multi-RHS (transposed-layout kernel: the coefficient
-        table is read once for all s).  Falls back to the generic path
-        (returns None) when the pallas kernel can't run."""
-        n, m = self.shape
-        if not (n == m and b.dtype == self.data.dtype):
-            return None
-        if b.ndim == 2:
-            return self._jacobi_sweeps_multirhs(b, x, dinv_omega, sweeps)
-        if not self._pallas_ok():
-            return None
-        from parelag_tpu.ops.pallas_kernels import (
-            dia_jacobi_sweep_pallas, dia_xpad_len)
-        lo, hi = self.span
-        T = self._TILE
-        npad = self.data.shape[1]
-        if npad % T:
-            return None                      # foreign (unpadded) table
-        xlen = dia_xpad_len(npad, lo, self.offs, T)
-        bpad = jnp.zeros(npad, b.dtype).at[:n].set(b)
-        dpad = jnp.zeros(npad, b.dtype).at[:n].set(
-            dinv_omega.astype(b.dtype))
-        xpad = (jnp.zeros(xlen, b.dtype) if x is None
-                else jnp.zeros(xlen, b.dtype).at[lo:lo + n].set(x))
-        for _ in range(sweeps):
-            xn = dia_jacobi_sweep_pallas(
-                self.data, self.offs, xpad, bpad, dpad, lo, n, tile=T)
-            xpad = jnp.zeros(xlen, b.dtype).at[lo:lo + n].set(xn[:n])
-        return xpad[lo:lo + n]
-
-    def _jacobi_sweeps_multirhs(self, b, x, dinv_omega, sweeps):
-        n = self.shape[0]
-        s = b.shape[1]
-        if not self._pallas_multirhs_ok(s):
-            return None
-        from parelag_tpu.ops.pallas_kernels import (
-            dia_jacobi_sweep_multirhs_pallas, dia_xpad_len)
-        lo, hi = self.span
-        T = self._TILE
-        npad = self.data.shape[1]
-        if npad % T:
-            return None                      # foreign (unpadded) table
-        xlen = dia_xpad_len(npad, lo, self.offs, T)
-        bpadT = jnp.zeros((s, npad), b.dtype).at[:, :n].set(b.T)
-        dpad = jnp.zeros(npad, b.dtype).at[:n].set(
-            dinv_omega.astype(b.dtype))
-        xpadT = (jnp.zeros((s, xlen), b.dtype) if x is None
-                 else jnp.zeros((s, xlen), b.dtype
-                                ).at[:, lo:lo + n].set(x.T))
-        for _ in range(sweeps):
-            xn = dia_jacobi_sweep_multirhs_pallas(
-                self.data, self.offs, xpadT, bpadT, dpad, lo, n, tile=T)
-            xpadT = jnp.zeros((s, xlen), b.dtype
-                              ).at[:, lo:lo + n].set(xn[:, :n])
-        return xpadT[:, lo:lo + n].T
 
     def __matmul__(self, x):
         return self.matvec(x)
 
 
 def to_dia(A, dtype=np.float32) -> DiaMatrix:
-    """Convert scipy sparse to the row-aligned diagonal layout. The
-    coefficient table is stored padded to the pallas tile multiple so the
-    kernel path never copies it at matvec time."""
+    """Convert scipy sparse to the row-aligned diagonal layout."""
     A = sp.csr_matrix(A)
     n, m = A.shape
     coo = A.tocoo()
     off = coo.col.astype(np.int64) - coo.row
     offsets = np.unique(off)
     slot = np.searchsorted(offsets, off)
-    npad = -(-n // DiaMatrix._TILE) * DiaMatrix._TILE
-    data = np.zeros((max(offsets.size, 1), npad), dtype=dtype)
+    data = np.zeros((max(offsets.size, 1), n), dtype=dtype)
     np.add.at(data, (slot, coo.row), coo.data.astype(dtype))
     if offsets.size == 0:
         offsets = np.zeros(1, dtype=np.int64)
@@ -531,11 +400,10 @@ class DiaEllMatrix:
     """Hybrid split A = D + R: the high-occupancy diagonals go in DIA
     (gather-free shifted-slice adds) and the stragglers in a narrow ELL.
 
-    TPU gathers run ~130M elem/s on this stack (measured: a (131072, 12)
-    ELL matvec costs 12 ms against a ~0.3 ms roofline), so SpMV cost is
-    per GATHERED ELEMENT, not per byte.  Facet multiplier systems on
-    structured meshes put 95%+ of nnz on a few dozen diagonals — moving
-    those out of the gather cuts the matvec by the same factor.
+    Facet multiplier systems on structured meshes put 95%+ of nnz on a
+    few dozen diagonals; moving those out of the element gather leaves a
+    narrow remainder.  Whether this beats plain ELL on the H100 is not
+    measured.
     """
     dia: "DiaMatrix"
     ell: "EllMatrix"
@@ -587,8 +455,7 @@ def to_dia_ell(A, dtype=np.float32, min_fill=0.05, max_diags=64,
 @jax.tree_util.register_pytree_node_class
 class BlockDiagInverse:
     """Block-diagonal inverse in block-contiguous ordering: apply is
-    static slices + batched (k, s, s) einsum — zero gathers (vs ~8 ms
-    for the same apply shipped as a width-8 ELL at n=131072).  Caller
+    static slices + batched (k, s, s) einsum — zero gathers.  Caller
     permutes the system so same-size blocks sit in contiguous segments;
     singleton buckets degenerate to an elementwise multiply."""
 
@@ -616,7 +483,8 @@ class BlockDiagInverse:
                 outs.append(B * seg)
             else:
                 outs.append(jnp.einsum(
-                    "kij,kj->ki", B, seg.reshape(k, s)).reshape(-1))
+                    "kij,kj->ki", B, seg.reshape(k, s),
+                    precision=_HIGHEST).reshape(-1))
             o += k * s
         return outs[0] if len(outs) == 1 else jnp.concatenate(outs)
 
@@ -649,6 +517,6 @@ def diag_of(A_scipy) -> np.ndarray:
 def l1_row_weights(A_scipy) -> np.ndarray:
     """l1-Jacobi weights: d_i = sum_j |a_ij| (reference Weightedl1Smoother
     row weights, ParELAG_MatrixUtils.hpp:40-142); spectrally safe diagonal
-    smoother, the TPU-idiomatic substitute for hypre's sequential L1-GS."""
+    smoother, the data-parallel substitute for hypre's sequential L1-GS."""
     A = sp.csr_matrix(A_scipy)
     return np.asarray(np.abs(A).sum(axis=1)).ravel()

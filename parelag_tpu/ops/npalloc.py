@@ -4,11 +4,10 @@ Built on demand with gcc/g++ like ops/native.py; everything degrades to a
 no-op when the toolchain is missing. Installed at parelag_tpu import
 (see __init__._install_np_allocator); disable with PARELAG_NPALLOC=0.
 
-Why it exists: on the virtualized hosts this framework targets, first
-population of fresh heap pages runs 50-100x slower than steady-state in
-phases, and the setup engine's GB-scale numpy temporaries made ALLOCATION
-(not compute) the dominant coarsening cost — a 1.3 GB np.zeros was
-measured at 35 s against 1.7 s for the kernel that filled it. The C
+Why it exists: first population of fresh heap pages is slow on some
+virtualized hosts, and the setup engine's GB-scale numpy temporaries can
+make ALLOCATION (not compute) the dominant coarsening cost; its effect on
+the GPU machine's host is not measured. The C
 handler keeps freed >=1 MB blocks in size-class free lists so their
 already-populated pages are reused (allocator analog of the reference's
 MemoryUtils, src/utilities/MemoryUtils.hpp).

@@ -2,7 +2,7 @@
 
 Reference: src/structures/GhostMap.hpp:51 — DG-style neighbor-data
 exchange built on SharingMap (Distribute = owner -> ghost copies,
-Assemble = sum ghost contributions -> owner). The TPU-native rebuild keeps
+Assemble = sum ghost contributions -> owner). The rebuild keeps
 the same two verbs as precomputed index plans over the virtual-global
 layout (owner * n_loc + slot, the parallel.sharding convention):
 

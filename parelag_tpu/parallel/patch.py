@@ -6,7 +6,7 @@ fabric is SharingMap/SharedEntityCommunication: owners gather neighbor data,
 compute shared coarse entities once, and broadcast the results
 (DeRhamSequence.cpp:1818-2086).
 
-The TPU-native decomposition here: each rank holds a PATCH — its owned
+The decomposition here: each rank holds a PATCH — its owned
 elements plus every agglomerate sharing a vertex with them (complete halo
 AEs). Because per-coarse-entity computations depend only on the entity's
 closure data, and because patch-local numbering is GLOBAL-ORDER-PRESERVING
@@ -16,8 +16,8 @@ for all coarse entities owned by the rank. The owner-computes-and-broadcast
 protocol becomes compute-in-overlap: shared entities are computed
 redundantly (identically) by each adjacent rank from its own patch — the
 communication is the one-time halo construction instead of per-stage
-messages, which is the latency-optimal trade on a TPU mesh (setup messages
-are many and small; the halo is one bulk exchange).
+messages (setup messages are many and small; the halo is one bulk
+exchange).
 """
 
 from dataclasses import dataclass, field

@@ -5,7 +5,7 @@ per-rank patches whose heavy kernels are batched small dense problems
 (weighted SVDs of trace targets, saddle-point solves of the extensions —
 SURVEY.md §3.5 hot loops 1-2). Here those batches execute over the
 jax device mesh with shard_map: one rank's padded batch per device, a
-single traced computation for all ranks — the TPU replacement for the
+single traced computation for all ranks — the device replacement for the
 reference's per-MPI-rank LAPACK loops.
 """
 
@@ -14,11 +14,8 @@ from functools import partial
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
-try:                                   # jax >= 0.8
-    from jax import shard_map
-except ImportError:                    # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 
 def pad_rank_batches(batches, n_devices):

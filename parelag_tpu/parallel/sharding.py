@@ -2,16 +2,19 @@
 
 The reference's parallel model is one MPI rank per mesh subdomain with all
 communication expressed through SharingMap/ParCSR halo exchanges
-(src/structures/SharingMap.hpp:41-311, SURVEY.md §2.3). The TPU-native
-equivalent here: one `dd` mesh axis; dofs are assigned to the device owning
-their first adjacent element; device-local padded row blocks of each sparse
-operator index a virtual global vector (device*stride + slot); SpMV gathers
-remote entries after an all_gather over the dd axis (ICI), and inner products
-are local partials + psum — exactly SharingMap.Assemble/Distribute semantics
-in collective form.
+(src/structures/SharingMap.hpp:41-311, SURVEY.md §2.3). The equivalent
+here: one `dd` mesh axis; dofs are assigned to the device owning their first
+adjacent element; device-local padded row blocks of each sparse operator
+index a virtual global vector (device*stride + slot); SpMV gathers remote
+entries after an all_gather over the dd axis, and inner products are local
+partials + psum — exactly SharingMap.Assemble/Distribute semantics in
+collective form.
 
 Everything below works identically on a CPU mesh of virtual devices
-(xla_force_host_platform_device_count) and on real multi-chip slices.
+(xla_force_host_platform_device_count) and on several GPUs.
+
+The f32 SpMV and transfer contractions pass precision=HIGHEST: on the GPU
+a default-precision f32 contraction may run in TF32 (~3 digits).
 """
 
 from dataclasses import dataclass
@@ -21,12 +24,10 @@ import numpy as np
 import scipy.sparse as sp
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:                                   # jax >= 0.8
-    from jax import shard_map
-except ImportError:                    # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @dataclass
@@ -193,7 +194,8 @@ def _halo_spmv_local(values_blk, indices_ext_blk, row_mask_blk, send_blks,
         perm = [(d, (d + s) % ndev) for d in range(ndev)]
         ghosts.append(jax.lax.ppermute(buf, "dd", perm))
     xext = jnp.concatenate([x_blk[0]] + ghosts) if ghosts else x_blk[0]
-    y = jnp.einsum("nk,nk->n", values_blk[0], xext[indices_ext_blk[0]])
+    y = jnp.einsum("nk,nk->n", values_blk[0], xext[indices_ext_blk[0]],
+                   precision=_HIGHEST)
     return (y * row_mask_blk[0])[None, :]
 
 
@@ -219,23 +221,14 @@ def ensure_distributed_initialized():
 
 
 def make_dd_mesh(n_devices=None) -> Mesh:
-    """The dd device mesh over ALL processes' devices (DCN x ICI in
-    multi-host runs — jax.devices() is global after
-    ensure_distributed_initialized). Device order comes from
-    mesh_utils.create_device_mesh so dd-axis neighbors are ICI-adjacent
-    where the topology allows (halo ppermutes ride ICI, not DCN)."""
+    """The dd device mesh over ALL processes' devices (jax.devices() is
+    global after ensure_distributed_initialized), in enumeration order:
+    the cards of one host are joined all to all, so no order is better
+    for the halo ppermutes."""
     ensure_distributed_initialized()
     devs = jax.devices()
     if n_devices is not None:
         devs = devs[:n_devices]
-    if len(devs) > 1:
-        try:
-            from jax.experimental import mesh_utils
-            arr = mesh_utils.create_device_mesh(
-                (len(devs),), devices=devs)
-            return Mesh(arr, ("dd",))
-        except Exception:          # fallback: enumeration order
-            pass
     return Mesh(np.array(devs), ("dd",))
 
 
@@ -285,10 +278,11 @@ def distributed_pcg_step(mesh: Mesh):
         out_specs=(P("dd"), P("dd"), P("dd"), P("dd")),
     )
     def step(indices, values, row_mask, dinv, x, r, z, d):
-        # halo exchange: gather the full virtual-global vector over ICI
+        # halo exchange: gather the full virtual-global vector
         # (local block shape is (1, n_loc); all_gather -> (ndev, 1, n_loc))
         dg = jax.lax.all_gather(d, "dd").reshape(-1)
-        Ad = jnp.einsum("nk,nk->n", values[0], dg[indices[0]])[None, :]
+        Ad = jnp.einsum("nk,nk->n", values[0], dg[indices[0]],
+                        precision=_HIGHEST)[None, :]
         Ad = Ad * row_mask
         rz = jax.lax.psum(jnp.vdot(r, z), "dd")
         dAd = jax.lax.psum(jnp.vdot(d, Ad), "dd")
@@ -341,26 +335,27 @@ def distributed_mg_pcg_step(mesh: Mesh, nu=2, omega=1.0):
         x = omega * dinv * r * row_mask
         for _ in range(nu - 1):
             xg = jax.lax.all_gather(x, "dd").reshape(-1)
-            Ax = (jnp.einsum("nk,nk->n", values[0], xg[indices[0]])
-                  )[None, :] * row_mask
+            Ax = (jnp.einsum("nk,nk->n", values[0], xg[indices[0]],
+                             precision=_HIGHEST))[None, :] * row_mask
             x = x + omega * dinv * (r - Ax) * row_mask
         # residual + restriction (psum of local P^T r parts)
         xg = jax.lax.all_gather(x, "dd").reshape(-1)
-        Ax = (jnp.einsum("nk,nk->n", values[0], xg[indices[0]])
-              )[None, :] * row_mask
+        Ax = (jnp.einsum("nk,nk->n", values[0], xg[indices[0]],
+                         precision=_HIGHEST))[None, :] * row_mask
         res = (r - Ax) * row_mask
         nc = coarse_inv.shape[0]
         rc_part = jnp.zeros(nc, dtype=r.dtype).at[Pi[0].reshape(-1)].add(
             (Pv[0] * res[0][:, None]).reshape(-1))
         rc = jax.lax.psum(rc_part, "dd")
-        ec = coarse_inv @ rc
+        ec = jnp.dot(coarse_inv, rc, precision=_HIGHEST)
         # interpolate + correct (local rows of P)
-        x = x + jnp.einsum("nk,nk->n", Pv[0], ec[Pi[0]])[None, :] * row_mask
+        x = x + jnp.einsum("nk,nk->n", Pv[0], ec[Pi[0]],
+                           precision=_HIGHEST)[None, :] * row_mask
         # post-smooth
         for _ in range(nu):
             xg = jax.lax.all_gather(x, "dd").reshape(-1)
-            Ax = (jnp.einsum("nk,nk->n", values[0], xg[indices[0]])
-                  )[None, :] * row_mask
+            Ax = (jnp.einsum("nk,nk->n", values[0], xg[indices[0]],
+                             precision=_HIGHEST))[None, :] * row_mask
             x = x + omega * dinv * (r - Ax) * row_mask
         return x
 
@@ -375,8 +370,8 @@ def distributed_mg_pcg_step(mesh: Mesh, nu=2, omega=1.0):
     def step(indices, values, row_mask, dinv, Pi, Pv, coarse_inv,
              x, r, z, d):
         dg = jax.lax.all_gather(d, "dd").reshape(-1)
-        Ad = (jnp.einsum("nk,nk->n", values[0], dg[indices[0]])
-              )[None, :] * row_mask
+        Ad = (jnp.einsum("nk,nk->n", values[0], dg[indices[0]],
+                         precision=_HIGHEST))[None, :] * row_mask
         rz = jax.lax.psum(jnp.vdot(r, z), "dd")
         dAd = jax.lax.psum(jnp.vdot(d, Ad), "dd")
         alpha = rz / jnp.where(dAd != 0, dAd, 1.0)
@@ -397,7 +392,7 @@ def distributed_mg_pcg_step_halo(mesh: Mesh, plan: HaloPlan, nu=2,
     """distributed_mg_pcg_step with neighbor-only ppermute halo exchange in
     every SpMV (fine-level smoothing, residual, and the CG matvec) instead
     of all_gather: traffic per device is O(surface) instead of O(volume),
-    riding only the ICI links that the subdomain graph actually uses."""
+    between only the devices that the subdomain graph joins."""
     ndev = mesh.devices.size
     offsets = plan.offsets
     n_send = len(offsets)
@@ -417,8 +412,9 @@ def distributed_mg_pcg_step_halo(mesh: Mesh, plan: HaloPlan, nu=2,
         rc_part = jnp.zeros(nc, dtype=r.dtype).at[Pi[0].reshape(-1)].add(
             (Pv[0] * res[0][:, None]).reshape(-1))
         rc = jax.lax.psum(rc_part, "dd")
-        ec = coarse_inv @ rc
-        x = x + jnp.einsum("nk,nk->n", Pv[0], ec[Pi[0]])[None, :] * row_mask
+        ec = jnp.dot(coarse_inv, rc, precision=_HIGHEST)
+        x = x + jnp.einsum("nk,nk->n", Pv[0], ec[Pi[0]],
+                           precision=_HIGHEST)[None, :] * row_mask
         for _ in range(nu):
             x = x + omega * dinv * (r - spmv(values, idx_ext, row_mask,
                                              sends, x)) * row_mask
@@ -499,7 +495,7 @@ def distributed_mg_pcg(system: DistributedSystem, P_scipy, A_coarse,
 class DistributedHierarchy:
     """L-level distributed MG: every level's operator is row-sharded with
     its own HaloPlan; restriction reduces partial P^T r contributions with
-    psum_scatter (reduce-scatter over ICI); prolongation all_gathers the
+    psum_scatter (reduce-scatter); prolongation all_gathers the
     (geometrically shrinking) coarse block; the coarsest level applies a
     replicated dense inverse. The reference's analog is hypre's parallel
     V-cycle over ParCSR operators (SURVEY.md §2.3)."""
@@ -606,7 +602,7 @@ def distributed_mg_l_step(mesh: Mesh, hierarchy: DistributedHierarchy,
             # replicated coarse solve: gather the full coarse vector
             # (virtual layout), reorder to global, solve, scatter back
             rg = jax.lax.all_gather(r, "dd").reshape(-1)
-            e = coarse_inv @ rg[g2v]
+            e = jnp.dot(coarse_inv, rg[g2v], precision=_HIGHEST)
             ep = jnp.zeros(ndev * n_locs[l], r.dtype).at[g2v].set(e)
             me = jax.lax.axis_index("dd")
             return jax.lax.dynamic_slice_in_dim(
@@ -627,8 +623,8 @@ def distributed_mg_l_step(mesh: Mesh, hierarchy: DistributedHierarchy,
         ec = vcycle(l + 1, levels, coarse_inv, g2v, rc.reshape(1, -1))
         # prolongation: all_gather the coarse block, local P rows
         eg = jax.lax.all_gather(ec, "dd").reshape(-1)
-        x = x + jnp.einsum("nk,nk->n", lv["Pv"][0],
-                           eg[lv["Pi"][0]])[None, :] * lv["mask"]
+        x = x + jnp.einsum("nk,nk->n", lv["Pv"][0], eg[lv["Pi"][0]],
+                           precision=_HIGHEST)[None, :] * lv["mask"]
         for _ in range(nu):
             x = smooth(l, lv, r, x)
         return x

@@ -73,8 +73,7 @@ def amge_pcg_solve(H, A_ell, b, rtol=1e-6, atol=1e-12, maxiter=500):
     'Krylov + AMGe preconditioner' composition, CreateXFormParameterList).
 
     Jitted with the hierarchy/operator as ARGUMENTS: closing over multi-MB
-    device arrays embeds them as XLA constants, which the TPU compiler
-    handles pathologically slowly."""
+    device arrays would embed them as XLA constants in the module."""
     import jax
     from parelag_tpu.solvers.cg import pcg
 

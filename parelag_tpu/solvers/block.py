@@ -130,8 +130,7 @@ def darcy_gmres_solve(H, A_scipy, b, rtol=1e-6, restart=50,
     from parelag_tpu.solvers.cg import gmres
     bj = jnp.asarray(np.asarray(b, dtype=dtype))
 
-    # hierarchy passed as a jit argument (closure constants of this size
-    # compile pathologically slowly on TPU)
+    # hierarchy passed as a jit argument, not closed over as constants
     @jax.jit
     def run(Harg, bb):
         return gmres(lambda v: Harg.levels[0].A @ v, bb, precond=Harg.apply,

@@ -227,9 +227,8 @@ def make_pcg_stepper(matvec, precond=None, steps_per_sync=2):
     """Host-driven PCG: one jitted CG step (matvec + preconditioner +
     vector updates), convergence checked on host every `steps_per_sync`
     steps. Use when the operator's XLA graph compiles poorly inside
-    lax.while_loop — on the current TPU stack the BCSR block-gather matvec
-    compiles in seconds standalone but pathologically slowly inside a
-    while_loop body, so the MXU-friendly format needs the loop on the host.
+    lax.while_loop (a host loop around a jitted step compiles the step
+    alone).
     Same stopping rule as pcg (r.z <= max(rtol^2 * nom0, atol^2); mfem
     IterativeSolver semantics). Returns solve(b, rtol, atol, maxiter) ->
     (x, (niter, final r.z))."""

@@ -71,9 +71,9 @@ class Hierarchy:
 
     def cast(self, dtype, keep_coarse_inv=True):
         """Return a copy with all floating leaves cast to `dtype` (e.g.
-        jnp.bfloat16). The preconditioner tolerates low precision — SpMV on
-        TPU is HBM-bound, so bf16 tiles nearly halve cycle time — while the
-        Krylov vectors, dots, and A-matvec stay f32. The coarse dense
+        jnp.bfloat16). The preconditioner tolerates low precision — SpMV is
+        memory-bound, so bf16 tables halve the bytes a cycle streams — while
+        the Krylov vectors, dots, and A-matvec stay f32. The coarse dense
         inverse is kept at full precision by default (it is tiny and its
         conditioning matters most)."""
         def cast_leaf(x):
@@ -94,7 +94,10 @@ class Hierarchy:
 def _cycle(levels, l, b, x, mu, x_is_zero=False):
     lvl = levels[l]
     if lvl.coarse_inv is not None:
-        return lvl.coarse_inv @ b
+        # HIGHEST: an f32 coarse inverse would otherwise run in TF32 on
+        # the GPU; the level is tiny, so full precision costs nothing
+        return jnp.dot(lvl.coarse_inv, b,
+                       precision=jax.lax.Precision.HIGHEST)
     if x_is_zero and hasattr(lvl.pre, "apply_zero"):
         x = lvl.pre.apply_zero(lvl.A, b)
     else:
@@ -123,11 +126,9 @@ def build_hierarchy(A_scipy_levels, P_scipy_levels, smoother_factory,
 
     reorder="rcm": reverse-Cuthill-McKee permute every level — tightens the
     bandwidth so BCSR needs fewer column blocks per row block (~35% fewer
-    tile bytes on the 27-point H1 operator). Measured on v5e this did NOT
-    speed up the V-cycle (6.5M vs 6.9M dof_iter/s — the block gather is
-    not purely bytes-bound), so it stays opt-in; it pays off when tile
-    memory, not time, is the constraint. The returned Hierarchy carries
-    perm/iperm for level 0; solve in permuted space (b[perm] in,
+    tile bytes on the 27-point H1 operator). Its effect on V-cycle time is
+    not measured on the H100, so it stays opt-in. The returned Hierarchy
+    carries perm/iperm for level 0; solve in permuted space (b[perm] in,
     x[iperm] out) — amge_pcg_solve does this automatically.
     """
     from parelag_tpu.ops.device_sparse import (
@@ -138,13 +139,11 @@ def build_hierarchy(A_scipy_levels, P_scipy_levels, smoother_factory,
         """Device format for P/R. Transfer operators are thin (~2-8 nnz
         per row) and agglomerate-spread, so the A-format heuristics
         misfire: DIA needs square shifts, and the BCSR guards tuned for
-        operators reject P at scale, falling back to element-gather ELL —
-        measured 0.8 GB/s vs 200+ GB/s for the VPU BCSR matvec (the L0
-        P/R applications were 90 of the 86ms flagship V-cycle). Pick by
-        host-side structure stats: BCSR when its kb-padding stays within
-        4x of the nonempty-tile bytes (dense writes beat segment-sum
-        scatter), TileCoo when padding explodes but the tile count is
-        sane, ELL only as the last resort."""
+        operators reject P at scale. Pick by host-side structure stats:
+        BCSR when its kb-padding stays within 4x of the nonempty-tile
+        bytes, TileCoo when padding explodes but the tile count is sane,
+        ELL as the last resort. The thresholds are inherited and not
+        measured on the H100."""
         M = sp.csr_matrix(M)
         tdt = transfer_dtype if transfer_dtype is not None else dtype
         if matrix_format == "ell" or _jax.default_backend() == "cpu":
@@ -164,13 +163,11 @@ def build_hierarchy(A_scipy_levels, P_scipy_levels, smoother_factory,
         M = sp.csr_matrix(M)
         fmt = matrix_format
         if fmt == "auto":
-            # BCSR SpMV is ~4x faster than ELL on TPU (block gathers feed
-            # the VPU/MXU; ELL is element-gather bound). Callers MUST pass
-            # the Hierarchy as a jit ARGUMENT, never close over it: the TPU
-            # compiler is pathologically slow on multi-MB constants embedded
-            # in the module (minutes per 25MB constant; measured on v5e) but
-            # compiles the same graph in seconds when tensors arrive as
-            # parameters. On CPU the padded tiles only add overhead.
+            # BCSR block gathers on accelerators, ELL on CPU where the
+            # padded tiles only add overhead (the choice between them is
+            # not measured on the H100). Callers pass the Hierarchy as a
+            # jit ARGUMENT, never close over it: multi-MB arrays closed
+            # over by jit become constants embedded in the module.
             fmt = "ell" if _jax.default_backend() == "cpu" else "bcsr"
         if fmt == "dia":
             # gather-free shift SpMV. The scan over diagonals is SERIAL,

@@ -8,7 +8,7 @@ entries; factories resolve nested solver names ("Preconditioner",
 built against a SolverState (sequence chain + form(s) + essential labels,
 the ParELAG_SolverState.hpp:54 analog) and expose solve(b)->x / apply(r).
 
-TPU-native type mapping (hypre does not exist here; the reference itself
+Device type mapping (hypre does not exist here; the reference itself
 covers these roles with its own hierarchy, cf. Create1FormParameterList.hpp:
 85-101):
     Krylov            -> jitted PCG / MINRES (host fallback)
@@ -34,10 +34,8 @@ from parelag_tpu.utils.params import ParameterList
 # device execution plumbing: preconditioners expose (pytree state, static
 # apply fn) through Solver.device_state(); _KrylovSolver then runs the
 # WHOLE Krylov iteration as one jitted XLA computation with the operator
-# and preconditioner state passed as jit arguments (never closed over —
-# multi-MB constants compile pathologically slowly on TPU). This replaces
-# the round-2 host-scipy dispatch flagged by the judge ("an XML-configured
-# production solve never touches the TPU", solvers/library.py:221-330).
+# and preconditioner state passed as jit arguments (never closed over as
+# multi-MB constants), in place of a host-scipy Krylov dispatch.
 # ---------------------------------------------------------------------- #
 def _prec_apply_smoother(state, r):
     sm, A = state
@@ -362,7 +360,7 @@ class _SmootherSolver(Solver):
                 A, degree=fac.sp.get("Cheby Poly Order", 3),
                 ratio=fac.sp.get("Cheby Poly Fraction", 0.3))
         else:
-            # L1 Gauss-Seidel / L1 Jacobi / Jacobi -> l1-Jacobi on TPU
+            # L1 Gauss-Seidel / L1 Jacobi / Jacobi -> l1-Jacobi on device
             self._sm = sm.make_l1_jacobi(
                 A, sweeps=sweeps, omega=fac.sp.get("Damping Factor", 1.0))
         self._jnp = jnp

@@ -6,7 +6,7 @@ BoomerAMG ("CG_PCG-AMG" built by ParELAG_HybridizationSolverFactory.cpp:
 135-141 from CreateDarcyParameterList.hpp:60-80).  BoomerAMG itself
 (classical Ruge-Stueben C/F coarsening with sequential independent-set
 passes) is a poor fit for array programming; smoothed aggregation is the
-TPU-idiomatic equivalent — the whole setup is vectorized numpy over CSR
+data-parallel equivalent — the whole setup is vectorized numpy over CSR
 index arrays (strength filtering, Luby-style root selection, aggregate
 propagation, one SpGEMM per level), and the resulting hierarchy rides the
 existing jitted device V-cycle (solvers/hierarchy.py).

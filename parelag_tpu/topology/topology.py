@@ -1,6 +1,6 @@
 """Agglomerated mesh topology across coarsening levels.
 
-TPU-native rebuild of the reference AgglomeratedTopology
+Rebuild of the reference AgglomeratedTopology
 (src/topology/Topology.hpp:69-564): a level's topology is the chain of
 oriented boundary operators
 

@@ -14,7 +14,7 @@ from contextlib import contextmanager
 @contextmanager
 def profile_trace(logdir):
     """Capture a device profile around a block (jax.profiler.trace):
-    the TPU-native replacement for the reference's compile-time elag_trace
+    the replacement for the reference's compile-time elag_trace
     per-rank call logs (Trace.hpp:20-40) — open with TensorBoard/XProf."""
     import jax
     with jax.profiler.trace(str(logdir)):

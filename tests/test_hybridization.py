@@ -75,7 +75,7 @@ def test_hybrid_cg_with_rescaling(hierarchy):
 
 
 def test_hybridization_device_solver():
-    """TPU-native multiplier solve (jitted l1-Jacobi PCG) matches the
+    """Device multiplier solve (jitted l1-Jacobi PCG) matches the
     direct solve."""
     from parelag_tpu.models.darcy import build_darcy_hierarchy
     from parelag_tpu.amge.hybridization import HybridHdivL2

@@ -57,24 +57,33 @@ def test_distributed_pcg_matches_serial(poisson):
     assert np.abs(x - xref).max() < 1e-10
 
 
-def test_dryrun_multichip():
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "graft_entry", "/root/repo/__graft_entry__.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    mod.dryrun_multichip(8)
+@pytest.fixture(scope="module")
+def dist_record():
+    from parelag_tpu.parallel.dist_bench import (
+        distributed_setup, compare_solves)
+    setup, b, _ = distributed_setup((16, 32, 20), 8)
+    return compare_solves(jax.devices()[:8], setup, b, dtype=np.float64)
 
 
-def test_entry_compiles():
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "graft_entry", "/root/repo/__graft_entry__.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    fn, args = mod.entry()
-    out = jax.jit(fn)(*args)
-    assert np.isfinite(np.asarray(out)).all()
+def test_dryrun_multichip(dist_record):
+    """The distributed multilevel setup + sharded V-cycle PCG on the 8
+    virtual devices matches the serial hierarchy PCG of the same operator
+    (the path `chip_smoke.py --multi` runs on four GPUs)."""
+    rec = dist_record
+    assert abs(rec["dist_iters"] - rec["serial_iters"]) <= 1, rec
+    assert rec["x_rel_diff"] < 1e-8, rec
+    assert rec["dist_rel_res"] < 1e-4, rec
+    assert rec["setup_solve_err"] < 1e-4, rec
+
+
+def test_distributed_operands_sharded_over_dd(dist_record):
+    """Each rank's level blocks live on its own device: the dd-sharded
+    operands of the distributed step span all 8 virtual devices."""
+    for name in ("values_l0", "P_l0", "rhs"):
+        pl = dist_record["placement"][name]
+        assert "dd" in pl["sharding"], pl
+        assert sorted(pl["devices"]) == sorted(
+            d.id for d in jax.devices()[:8]), pl
 
 
 def test_distributed_mg_pcg_matches_serial():

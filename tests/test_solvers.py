@@ -51,7 +51,7 @@ def test_amge_vcycle_pcg(form, max_iters, max_conv):
 # Reference-parity goldens (round-2 VERDICT item 7): the reference pins
 # per-form V-cycle final residual families (MultigridTest{0,1,2}Form,
 # examples/CMakeLists.txt:146-187: 5.92369e-07 / 1.97197e-06 /
-# 2.61854e-07) under its hypre L1-GS smoothers. The claimable TPU-native
+# 2.61854e-07) under its hypre L1-GS smoothers. The claimable device-side
 # equivalent is the exact PCG iteration count and a tight convergence-
 # factor band of OUR smoother configuration at the same rtol — any
 # regression in smoother or hierarchy quality moves these and fails CI,

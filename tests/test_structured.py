@@ -198,6 +198,22 @@ def test_chunked_matches_whole_level():
     assert outc.bub_sv < 1e-9 and outc.max_rel_sv < 1e-9
 
 
+def test_chunked_slice_dispatch_two_chunk_sizes():
+    """The slice dispatch caches one executable per stage: a second run
+    with another chunk size must not reuse the first run's slice length
+    (it once raised 'slice_sizes must be less than or equal to operand
+    shape' after a larger level had run)."""
+    lvl0 = st.fine_level((8, 8, 8))
+    cw, outw = st.coarsen_structured(lvl0, jform_start=0, chunk=0)
+    for chunk in (50, 7):
+        _, outc = st.coarsen_structured(lvl0, jform_start=0, chunk=chunk)
+        for f in ("ptr3", "ptr2", "pint2", "d2c", "pf1", "pc1", "d1c",
+                  "pe0", "pf0", "pc0", "d0c"):
+            a = np.asarray(getattr(outw, f))
+            b = np.asarray(getattr(outc, f))
+            assert _rel(b, a) < 1e-13, (chunk, f, _rel(b, a))
+
+
 def test_subagglomerate_heterogeneity_fails_loudly():
     """Fine-scale coefficient variation genuinely enlarges the coarse
     Hcurl/Hdiv spaces (the generic engine keeps bubble modes), so the
